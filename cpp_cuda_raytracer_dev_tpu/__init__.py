@@ -1,10 +1,10 @@
-"""TPU-native differentiable ray tracing framework.
+"""Differentiable ray tracing framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capability surface of the CUDA
 renderer ``ams3878/cpp_cuda_raytracer_dev`` (see SURVEY.md): PLY mesh
 loading, Möller–Trumbore intersection, KD-tree spatial hierarchy, Phong
 shading, quaternion camera/object animation — as pure jit-compiled
-functions, differentiable end-to-end, sharded over TPU meshes.
+functions, differentiable end-to-end, sharded over device meshes.
 """
 
 from .io.ply import MeshData, load_mesh, read_ply

@@ -1,18 +1,14 @@
-"""Screen-space tile binning — the TPU-native cull for primary rays.
+"""Screen-space tile binning — the cull for primary rays.
 
 The reference traverses a KD tree per ray (``TEST_Dungeonrun/Trixel.cu:
-41-172``): work scales with per-ray divergent node visits. On a vector
-machine the frustum-vs-cluster-AABB cull (accel/traverse.py) replaces that,
-but measured at dragon scale it still tests ~1500 ray-triangle pairs per
-ray — cluster AABBs are loose in depth and each 128-triangle cluster
-charges every ray of a tile. For *primary* rays (all through one origin —
-exactly the reference's rendering model, 1 ray/pixel, no bounces) there is
-an exact, massively cheaper cull: **project every triangle once and bin it
-to the image tiles its screen bbox overlaps** (one matmul + one sort —
-MXU/XLA-native), then intersect each tile only against its own bin,
-front-to-back. A pixel's ray can only hit a triangle whose projection
-covers that pixel, so binning by projected bbox (+guard) is conservative:
-it never drops a hittable pair.
+41-172``): work scales with per-ray divergent node visits. For *primary*
+rays (all through one origin — exactly the reference's rendering model,
+1 ray/pixel, no bounces) there is an exact and much cheaper cull: **project
+every triangle once and bin it to the image tiles its screen bbox
+overlaps** (elementwise math + one sort), then intersect each tile only
+against its own bin, front-to-back. A pixel's ray can only hit a triangle
+whose projection covers that pixel, so binning by projected bbox (+guard)
+is conservative: it never drops a hittable pair.
 
 Per object and frame (all traced, so animation/camera updates are free):
 
@@ -22,48 +18,51 @@ Per object and frame (all traced, so animation/camera updates are free):
     camera plane (some vertex behind) bin to every tile (conservative,
     none in practice when the camera is outside the mesh); fully-behind
     or offscreen triangles drop;
-3.  expand triangle -> (tile, tri) entries without scatters: exclusive
-    cumsum of per-tri tile counts + one searchsorted recovers, for each
-    flat entry index, which triangle it belongs to (static E_cap bound,
-    overflow counted and reported);
+3.  expand triangle -> (tile, tri) entries without scatters of data:
+    exclusive cumsum of per-tri tile counts + an indicator cumsum recovers,
+    for each flat entry index, which triangle it belongs to (static E_cap
+    bound, overflow counted and reported);
 4.  one 32-bit key sort orders entries by (tile, quantized min-depth):
     tile segments come out contiguous AND front-to-back — the kernel's
-    early-exit order, with the entry's own depth as the exit certificate
-    (t_hit >= min over the tri of (p-origin)·n for unit rays);
-5.  entry geometry is gathered once into a (10, E) table (p1|e1|e2 rows +
-    the depth-certificate row) that the kernel streams sequentially per
-    tile — no per-candidate indirection, no index tables in SMEM.
+    early-exit order;
+5.  entry geometry is gathered once into a (12, E) table of Möller–Trumbore
+    constants (ops/pallas/bin_intersect.py), whose depth row is the
+    per-tile suffix minimum of the entries' min-vertex depths: a lower
+    bound on every later hit in the tile (t_hit >= (p-origin)·n for unit
+    rays), which is the kernel's exit certificate.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import pytree_dataclass
 
 BIG = 3.0e38   # python float: a concrete jnp constant at module
                # level breaks tracing inside shard_map bodies
 
 
-class BinnedScene(struct.PyTreeNode):
+@pytree_dataclass
+class BinnedScene:
     """Per-frame, per-object binning output (traced values)."""
 
     geom: jax.Array      # (12, Epad) f32 MT-constant table: rows
-                         #   A(3) | B(3) | C(3) | TD | depth | tri-id —
-                         #   twelve flat entry-order gathers stacked, no
-                         #   transpose; the kernel BlockSpec slices
-                         #   (12, chunk) columns (bin_kernel2.py)
+                         #   A(3) | B(3) | C(3) | TD | depth | tri-id
+                         #   (layout: ops/pallas/bin_intersect.py)
     entry_tri: jax.Array  # (Epad,) i32 triangle id per entry (-1 padding)
     starts: jax.Array    # (nT + 1,) i32 entry range per tile
-    item_tile: jax.Array  # (I_cap,) i32 work-item -> tile (tile-major)
-    item_block: jax.Array  # (I_cap,) i32 work-item -> geometry block
-    qstep: jax.Array     # scalar f32 depth-quantization bucket width
     # diagnostics (per frame)
     num_entries: jax.Array      # scalar i32 — total live entries
     overflow_entries: jax.Array  # scalar i32 — entries dropped past E_cap
     cross_tris: jax.Array       # scalar i32 — camera-plane-crossing tris
 
 
+@functools.partial(
+    jax.jit, static_argnames=("res_h", "res_w", "th", "tw", "e_cap",
+                              "chunk", "eps", "backface_cull", "_stage"))
 def bin_triangles(proj, origin: jax.Array,
                   p1: jax.Array, e1: jax.Array, e2: jax.Array,
                   res_h: int, res_w: int, th: int, tw: int,
@@ -74,23 +73,19 @@ def bin_triangles(proj, origin: jax.Array,
 
     proj: Projection already transformed into the object frame; origin:
     (3,) object-frame ray origin (folded into the per-entry MT constant
-    table). Returns entries sorted by (tile, quantized depth), MT
-    constants gathered in entry order, plus the flat (tile, block)
-    work-item list for the inverted-grid kernel. e_cap bounds total
-    entries (static shape).
+    table). Returns entries sorted by (tile, quantized depth) with their
+    MT constants gathered in entry order; the table is padded by ``chunk``
+    dead columns so a kernel's chunk reads never leave it. e_cap bounds
+    total entries (static shape).
 
-    _stage: profiling probe — return intermediates early ("bbox",
-    "expand", "sort", "starts") so XLA dead-code-eliminates later stages;
-    timing deltas between stages give per-stage cost (scripts/
-    bin_stage_prof.py).
+    _stage: return intermediates early ("sort": sorted keys and triangle
+    ids, "starts": tile starts and triangle ids), for tests of the stages.
     """
     f32 = jnp.float32
 
     def _cols(a):
         # (T, 3) arrays OR pre-flattened (ax, ay, az) component tuples —
         # callers on the hot path pass the Triangles flat fields directly
-        # (a (T, 3) column slice costs a full pass over the 128-lane-
-        # padded storage, ~1 ms/array at 800k tris; models/scene.py r5)
         if isinstance(a, (tuple, list)):
             return a
         return a[:, 0], a[:, 1], a[:, 2]
@@ -101,12 +96,9 @@ def bin_triangles(proj, origin: jax.Array,
     n_ty = -(-res_h // th)
     n_tiles = n_tx * n_ty
 
-    # Project all 3 verts COMPONENTIZED: flat (T,) chains only. The r4
-    # form used three (T,3)@(3,3) matmuls — but every (T,3) intermediate
-    # is lane-padded 3->128 on TPU (42x wasted traffic per materialized
-    # value; the bbox stage measured 2.6 ms, mostly these), so the basis
-    # contraction is written as 9 scalar-broadcast fmas per vertex that
-    # XLA fuses into one flat pass.
+    # Project all 3 verts componentized: the basis contraction is written
+    # as 9 scalar-broadcast FMAs per vertex over flat (T,) arrays, which
+    # XLA fuses into one elementwise pass.
     p1x, p1y, p1z = _cols(p1)                               # (T,) each
     e1x, e1y, e1z = _cols(e1)
     e2x, e2y, e2z = _cols(e2)
@@ -185,14 +177,11 @@ def bin_triangles(proj, origin: jax.Array,
     ntx = jnp.where(onscreen, ix1 // tw - tx0 + 1, 0)       # (T,)
     nty = jnp.where(onscreen, iy1 // th - ty0 + 1, 0)
     ntiles_tri = ntx * nty
-    if _stage == "bbox":
-        return tx0, ty0, ntiles_tri
 
     # ---- expansion: entry j -> (tri, si) ----
     # tri_j = #{t : cum[t] <= j} (searchsorted-right over the inclusive
-    # cumsum). A boundary-indicator scatter-add + cumsum computes the same
-    # monotone step function; searchsorted(method="sort") measured 40 ms at
-    # E=2.4M (it re-sorts cum ++ iota), the indicator form ~1 ms.
+    # cumsum), computed as a boundary-indicator scatter-add + cumsum: the
+    # same monotone step function without a per-entry binary search.
     cum = jnp.cumsum(ntiles_tri)                            # inclusive
     e_tot = cum[-1]
     j = jnp.arange(e_cap, dtype=jnp.int32)
@@ -200,8 +189,6 @@ def bin_triangles(proj, origin: jax.Array,
     tri_j = jnp.cumsum(ind)
     valid = j < jnp.minimum(e_tot, e_cap)
     tri_j = jnp.minimum(tri_j, t_n - 1)
-    if _stage == "tri":
-        return tri_j, valid
 
     # ---- (tile, depth) key sort ----
     # one i32 key: tile id in the high bits, quantized depth in however
@@ -218,9 +205,9 @@ def bin_triangles(proj, origin: jax.Array,
     depth = jnp.maximum(depth, 0.0)
     # camera-plane crossers: a hit can be NEARER than the min front-vertex
     # depth (the hit point's n-component is unconstrained below it), so
-    # their exit certificate must be 0 or the kernel's cmin gate could
-    # unsoundly skip a block holding the true nearest hit (camera-inside
-    # scenes). They already get full-screen bboxes above.
+    # their exit certificate must be 0 or the kernel could stop before
+    # the entry holding the true nearest hit (camera-inside scenes). They
+    # already get full-screen bboxes above.
     depth = jnp.where(cross, 0.0, depth)
     d_lo = jnp.min(jnp.where(onscreen, depth, BIG))
     d_hi = jnp.max(jnp.where(onscreen & jnp.isfinite(depth), depth, 0.0))
@@ -233,9 +220,7 @@ def bin_triangles(proj, origin: jax.Array,
         jnp.maximum((depth - d_lo) * scale, 0.0).astype(jnp.int32),
         0, dmax)
 
-    # per-entry values via ONE packed (T, 6) gather (TPU row gathers at
-    # E=~1-2M rows dominate the prepass; 6 separate takes measured ~6x the
-    # cost of one packed take)
+    # per-entry values via ONE packed (T, 6) row gather
     itab = jnp.stack([cum, ntiles_tri, ntx, tx0, ty0, dq], axis=1)
     ient = jnp.take(itab, tri_j, axis=0)                    # (E, 6)
     si = j - ient[:, 0] + ient[:, 1]
@@ -247,31 +232,17 @@ def bin_triangles(proj, origin: jax.Array,
     key = jnp.where(valid,
                     (tile_j << dbits) | ient[:, 5],
                     jnp.int32(2**31 - 1))
-    if _stage == "expand":
-        return key, tri_j, tile_j
     key, tri_sorted = jax.lax.sort((key, tri_j), num_keys=1)
     tri_sorted = jnp.where(key == 2**31 - 1, -1, tri_sorted)
     if _stage == "sort":
         return key, tri_sorted
 
-    # ---- per-tile segment starts: lower_bound(sorted keys, t << dbits).
-    # Computed as ONE fused count-reduction: starts[t] = #{j : tile(key_j)
-    # < t}, via a (nT,)-bin one-hot matmul over the entries' tile ids +
-    # exclusive cumsum. Earlier forms and why they lost (all on-chip):
-    # a 21-round vectorized binary search = 21 sequential unfusable tiny
-    # gathers (~7 ms of per-op latency); a counts scatter-add = 11.3 ms
-    # (TPU scatter is ~10 ns/element); jnp.searchsorted(method="sort")
-    # was both slower AND wrong at E>2M. Invalid entries carry key
-    # 2^31-1 => tile id > every real tile, counted past the end.
+    # ---- per-tile segment starts: lower_bound(sorted keys, t << dbits),
+    # as one fused count-reduction starts[t] = #{j : tile(key_j) < t}.
+    # Invalid entries carry key 2^31-1 => tile id > every real tile,
+    # counted past the end.
     tile_of = (key >> dbits)                                # (E,) sorted
     q = jnp.arange(n_tiles, dtype=jnp.int32)                # (nT,)
-    # fused broadcast-compare reduction. FUSION CAVEAT (r5, advisor r4):
-    # this relies on XLA fusing the (nT, E) compare into the reduction.
-    # At the tuned sizes (nT ~1-2k, E <=1M) the stage measures ~free
-    # in-context, but the SAME pattern at (783, 518k) in ops/gather.py
-    # measured 4.6 ms — XLA materialized it there — and was replaced by
-    # a downsampled probe. If tile counts grow past ~4k, check this
-    # stage's cost and switch to the gather.py-style sampled bounds.
     lo = jnp.sum((tile_of[None, :] < q[:, None]).astype(jnp.int32),
                  axis=1)                                    # (nT,)
     n_valid = jnp.minimum(e_tot, e_cap).astype(jnp.int32)
@@ -284,9 +255,8 @@ def bin_triangles(proj, origin: jax.Array,
     # collapses to three dot products per (entry, ray): precompute the
     # epsilon-folded constants per TRIANGLE (the reference's own
     # per-camera cache, Trixel.cu:29-36 / init_cam_tri_mem_cuda), then
-    # gather rows per entry. Layout (12, chunk) blocks: components on
-    # sublanes, entries on lanes — exactly what the kernel's broadcast
-    # form consumes (ops/pallas/bin_kernel2.py docstring).
+    # gather rows per entry into the (12, E) layout the kernel reads
+    # (ops/pallas/bin_intersect.py docstring).
     ox, oy, oz = origin[0], origin[1], origin[2]
     tvx, tvy, tvz = ox - p1x, oy - p1y, oz - p1z
     mdx = e2y * e1z - e2z * e1y                             # e2 x e1
@@ -300,17 +270,9 @@ def bin_triangles(proj, origin: jax.Array,
     mvz = tvx * e1y - tvy * e1x
     td = e2x * mvx + e2y * mvy + e2z * mvz
     k1 = f32(1.0 - eps)
-    # row 11: the triangle id as f32 (exact below 2^24) — the kernel
-    # extracts the winner's id with a one-hot lane reduce, so the caller
-    # needs no per-ray decode gather at all.
-    #
-    # Layout: ONE (T, 12) -> (E, 12) row gather, then transposed to the
-    # kernel's (12, Epad) row layout. Measured r4 (chained, honest
-    # fence): the row gather costs ~29 ms at E=1.3M (~22 ns/row) and the
-    # transpose FUSES INTO THE GATHER'S WRITE for free; splitting into 12
-    # flat per-component gathers costs ~18 ns/row EACH (~213 ms total) —
-    # the gather's per-row latency dominates and is paid per take() call,
-    # not per lane.
+    # row 11: the triangle id as f32 (exact below 2^24), so the kernel
+    # returns the winner's id without a per-ray decode gather. ONE
+    # (T, 12) -> (E, 12) row gather, then transposed to (12, Epad).
     ftab = jnp.stack(
         [k1 * mdx, k1 * mdy, k1 * mdz,
          mux - eps * mdx, muy - eps * mdy, muz - eps * mdz,
@@ -326,49 +288,30 @@ def bin_triangles(proj, origin: jax.Array,
                                 jnp.full((1,), BIG, jnp.float32),
                                 jnp.full((1,), -1.0, jnp.float32)])
     rows = jnp.where(live, rows, dead_row)                  # det=0 rejects
+    # exit certificate: suffix minimum of the depth within each tile, so
+    # the value at any entry bounds every later entry of its tile
+    rows = rows.at[:, 10].set(_segment_suffix_min(tile_of, rows[:, 10]))
     rows = jnp.concatenate(
         [rows, jnp.broadcast_to(dead_row, (chunk, 12))], axis=0)
     geom = rows.T                                           # (12, Epad)
     entry_tri = jnp.concatenate(
         [tri_sorted, jnp.full((chunk,), -1, jnp.int32)])
 
-    # ---- (tile, block) work items for the inverted-grid kernel ----
-    # Tile t's entry segment spans blocks [starts[t]//chunk,
-    # (end[t]-1)//chunk]; empty tiles still get one item (their init
-    # must run — scanning block 0 is harmless, any hit it finds is a
-    # true intersection). Tail padding repeats the final real item,
-    # which re-tests the same block: idempotent under nearest-hit min.
-    nblocks = epad // chunk
-    seg_start = starts[:-1]
-    seg_end = starts[1:]
-    b0 = seg_start // chunk
-    nch = jnp.where(seg_end > seg_start,
-                    (seg_end - 1) // chunk - b0 + 1, 0)
-    nch1 = jnp.maximum(nch, 1)                              # (nT,)
-    cumi = jnp.cumsum(nch1)
-    i_cap = e_cap // chunk + n_tiles                        # static bound
-    ind_i = jnp.zeros((i_cap,), jnp.int32).at[cumi].add(1, mode="drop")
-    item_tile = jnp.minimum(jnp.cumsum(ind_i), n_tiles - 1)
-    itabs = jnp.stack([cumi, nch1, b0], axis=1)             # (nT, 3)
-    ig = jnp.take(itabs, item_tile, axis=0)                 # (I, 3) tiny
-    istart = ig[:, 0] - ig[:, 1]
-    off = jnp.minimum(jnp.arange(i_cap, dtype=jnp.int32) - istart,
-                      ig[:, 1] - 1)
-    item_block = jnp.minimum(ig[:, 2] + off, nblocks - 1)
-    # Tail padding items point at the all-dead pad chunk (depth row BIG
-    # => the kernel's certificate gate `cmin < wb` is always false, so a
-    # padding item costs ~a gate instead of a full 512x512 MT re-scan of
-    # the final real block — ~600 wasted items = ~0.6 ms at dragon scale
-    # before this, r5). Scanning it would still be harmless (det = 0
-    # rejects every dead entry).
-    pad_item = jnp.arange(i_cap, dtype=jnp.int32) >= cumi[-1]
-    item_block = jnp.where(pad_item, nblocks - 1, item_block)
-
     return BinnedScene(
         geom=geom, entry_tri=entry_tri, starts=starts,
-        item_tile=item_tile, item_block=item_block,
-        qstep=jnp.maximum(d_hi - d_lo, 1e-20) / f32(dmax),
         num_entries=jnp.minimum(e_tot, e_cap).astype(jnp.int32),
         overflow_entries=jnp.maximum(e_tot - e_cap, 0).astype(jnp.int32),
         cross_tris=jnp.sum(cross.astype(jnp.int32)),
     )
+
+
+def _segment_suffix_min(seg: jax.Array, val: jax.Array) -> jax.Array:
+    """out[j] = min(val[k] for k >= j with seg[k] == seg[j]); ``seg`` must
+    be sorted, so every segment is one contiguous run."""
+    def op(later, cur):
+        s_l, v_l = later
+        s_c, v_c = cur
+        return s_c, jnp.where(s_l == s_c, jnp.minimum(v_l, v_c), v_c)
+
+    _, out = jax.lax.associative_scan(op, (seg, val), reverse=True)
+    return out

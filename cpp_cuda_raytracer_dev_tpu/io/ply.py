@@ -242,3 +242,41 @@ def load_mesh(path: str | os.PathLike) -> MeshData:
     if magic == b"ply":
         return read_ply(path)
     return read_tester(path)
+
+
+def write_ply(path: str | os.PathLike, vertices: np.ndarray, faces,
+              binary: bool = False, extra: np.ndarray | None = None,
+              declare_properties: bool = True) -> None:
+    """Write an indexed mesh as PLY (ASCII or binary little-endian).
+
+    ``faces``: (F, k) int array or a list of index sequences (mixed
+    arities allowed). ``extra``: optional (V, m) float columns written
+    after x/y/z (``extra0..``), the way scanners append confidence or
+    normals. ``declare_properties=False`` writes an ASCII header with
+    bare ``element`` lines, as some exporters do (read_ply infers the
+    vertex width from the first body line)."""
+    v = np.asarray(vertices, np.float32)
+    cols = v if extra is None else np.concatenate(
+        [v, np.asarray(extra, np.float32)], axis=1)
+    names = ["x", "y", "z"] + [f"extra{i}" for i in range(cols.shape[1] - 3)]
+    faces = [np.asarray(f, np.int64) for f in faces]
+    fmt = "binary_little_endian" if binary else "ascii"
+    head = ["ply", f"format {fmt} 1.0", f"element vertex {len(v)}"]
+    if declare_properties or binary:
+        head += [f"property float {n}" for n in names]
+    head.append(f"element face {len(faces)}")
+    if declare_properties or binary:
+        head.append("property list uchar int vertex_indices")
+    head.append("end_header")
+    with open(path, "wb") as f:
+        f.write(("\n".join(head) + "\n").encode("ascii"))
+        if binary:
+            f.write(cols.astype("<f4").tobytes())
+            for face in faces:
+                f.write(np.uint8(len(face)).tobytes())
+                f.write(face.astype("<i4").tobytes())
+        else:
+            body = [" ".join(f"{x:.9g}" for x in row) for row in cols]
+            body += [" ".join(map(str, [len(face), *face]))
+                     for face in faces]
+            f.write(("\n".join(body) + "\n").encode("ascii"))

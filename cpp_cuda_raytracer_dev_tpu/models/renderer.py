@@ -24,15 +24,16 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..ops.intersect import FixedOriginCache, Hit, mt_brute, mt_fixed_origin
 from ..utils.config import RenderConfig
+from ..utils.pytree import pytree_dataclass
 from .camera import Camera
 from .scene import Scene
 
 
-class RenderOutput(struct.PyTreeNode):
+@pytree_dataclass
+class RenderOutput:
     """Frame outputs. ``image`` is the uint8 framebuffer (H, W, 3), row 0 at
     the *bottom* (bottom-up DIB order, WinMain.cpp:217); ``radiance`` is the
     pre-tonemap float image for losses/grads; plus per-pixel aux buffers
@@ -59,9 +60,8 @@ def trace_rays(scene: Scene, origin: jax.Array, rmd: jax.Array,
     build-time frame; each object transforms the rays instead.
     """
     if config.with_stats:
-        raise ValueError("with_stats makes the intersect paths return "
-                         "(Hit, stats); call intersect_clustered_pallas_v2 "
-                         "/ intersect_binned directly for telemetry")
+        raise ValueError("with_stats makes intersect_binned return "
+                         "(Hit, stats); call it directly for telemetry")
     best = Hit.miss(rmd.shape[0], config.draw_distance, rmd.dtype)
     for oi, obj in enumerate(scene.objects):
         d_obj = obj.pose.inv_apply_vec(rmd)
@@ -77,14 +77,6 @@ def trace_rays(scene: Scene, origin: jax.Array, rmd: jax.Array,
             from ..accel.traverse import intersect_clustered
             hit = intersect_clustered(o_obj, d_obj, obj.tris, accel[oi],
                                       config, band_h, band_w)
-        elif config.method == "pallas":
-            from ..accel.traverse import intersect_clustered_pallas
-            hit = intersect_clustered_pallas(o_obj, d_obj, accel[oi],
-                                             config, band_h, band_w)
-        elif config.method == "pallas2":
-            from ..accel.traverse import intersect_clustered_pallas_v2
-            hit = intersect_clustered_pallas_v2(o_obj, d_obj, accel[oi],
-                                                config, band_h, band_w)
         elif config.method == "bin":
             from ..accel.traverse import intersect_binned
             if proj is None:
@@ -119,9 +111,7 @@ def shade_hits(scene: Scene, origin: jax.Array, rmd: jax.Array, hit: Hit,
 
     Returns (radiance (R,3), normal (R,3), point (R,3), hit_mask (R,)).
 
-    All per-ray math runs on flat (R,) component arrays: (R, 3)-shaped
-    intermediates put the 3-axis on TPU lanes (125/128 padding waste per
-    vector op — measured ~0.17 ms per op at R=800k), so vectors are
+    All per-ray math runs on flat (R,) component arrays: vectors are
     sliced into components once after the gather and only stacked back
     at the very end.
     """
@@ -130,35 +120,25 @@ def shade_hits(scene: Scene, origin: jax.Array, rmd: jax.Array, hit: Hit,
     num_r = rmd.shape[0]
     tri_idx = jnp.maximum(hit.tri, 0)
     # NINE flat (R,) accumulators, stacked to (R, 3) only at the return
-    # boundary: under jax.grad every (R, 3) intermediate would be saved
-    # as a lane-padded residual for the backward pass (3 -> 128 lanes,
-    # 42x the traffic) — the componentized accumulators keep residuals
-    # dense.
+    # boundary, so the residuals jax.grad saves stay flat arrays.
     acc = [jnp.zeros((num_r,), rmd.dtype) for _ in range(9)]
-
-    from ..ops.gather import gather_rows
-    if not config.sorted_scatter:
-        gather_rows = lambda tables, idx: tuple(  # noqa: E731
-            jnp.take(t, idx, axis=0) for t in tables)
 
     dx, dy, dz = rmd[:, 0], rmd[:, 1], rmd[:, 2]             # world (R,)
     for oi, obj in enumerate(scene.objects):
         mask = (hit.obj == oi) & (hit.tri >= 0)
-        # 12 columns, not 15: the unit normal is recomputed from the
-        # gathered edges below instead of gathering tris.n — per-hit row
-        # gathers are latency-bound (~8 ns/row r5), the recompute is
-        # fused elementwise math, and vertex gradients then flow through
-        # the TRUE normal dependence n(e1, e2) rather than treating the
-        # normal table as an independent parameter. The table is packed
-        # once from the FLAT component fields (models/scene.py r5
-        # layout); gradients flow back through the stack to each flat
-        # parameter leaf.
+        # 12 columns: the unit normal is recomputed from the gathered
+        # edges below instead of gathered, so vertex gradients flow
+        # through the true normal dependence n(e1, e2). The table is
+        # packed once from the flat component fields; gradients flow back
+        # through the stack to each flat parameter leaf.
         t_ = obj.tris
         packed = jnp.concatenate(
             [jnp.stack([t_.p1x, t_.p1y, t_.p1z, t_.e1x, t_.e1y, t_.e1z,
                         t_.e2x, t_.e2y, t_.e2z], axis=1),
              t_.color], axis=1)                              # (T, 12)
-        rows, = gather_rows((packed,), tri_idx)
+        # one row gather; its transpose under jax.grad is XLA's
+        # scatter-add into the (T, 12) table gradient
+        rows = jnp.take(packed, tri_idx, axis=0)
         cr, cg, cb = rows[:, 9], rows[:, 10], rows[:, 11]
 
         # object-frame ray dir: R^T d, componentwise (R = pose rotation)
@@ -204,8 +184,14 @@ def shade_hits(scene: Scene, origin: jax.Array, rmd: jax.Array, hit: Hit,
         cnx = e1y * e2z - e1z * e2y
         cny = e1z * e2x - e1x * e2z
         cnz = e1x * e2y - e1y * e2x
-        inv_n = jax.lax.rsqrt(jnp.maximum(
-            cnx * cnx + cny * cny + cnz * cnz, 1e-30))
+        # degenerate (zero-area) triangles get a zero normal; the guard
+        # sits on rsqrt's INPUT so its derivative is never evaluated at 0
+        # (an inf there times a zero cotangent is a NaN gradient — miss
+        # rays gather triangle 0, which may be degenerate)
+        nn = cnx * cnx + cny * cny + cnz * cnz
+        inv_n = jnp.where(nn > 1e-30,
+                          jax.lax.rsqrt(jnp.where(nn > 1e-30, nn, 1.0)),
+                          0.0)
         nx_, ny_, nz_ = cnx * inv_n, cny * inv_n, cnz * inv_n
         nwx = m[0, 0] * nx_ + m[0, 1] * ny_ + m[0, 2] * nz_
         nwy = m[1, 0] * nx_ + m[1, 1] * ny_ + m[1, 2] * nz_
@@ -235,7 +221,7 @@ def render_rays(scene: Scene, origin: jax.Array, rmd: jax.Array,
 
     # Tangents are stopped at the traversal *inputs*, not just its output:
     # hit topology is non-differentiable by design (SURVEY.md §7 step 5),
-    # and the Pallas intersection kernels define no JVP rule — inputs with
+    # and the Pallas intersection kernel defines no JVP rule — inputs with
     # tangents would make jax.grad's linearization fail on pallas_call.
     sg = jax.lax.stop_gradient
     hit = trace_rays(sg(scene), sg(origin), sg(rmd), config,

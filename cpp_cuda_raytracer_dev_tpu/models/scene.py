@@ -23,24 +23,21 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..ops import vecmath
 from ..ops.quaternion import Pose
+from ..utils.pytree import pytree_dataclass
 
 
-class Triangles(struct.PyTreeNode):
+@pytree_dataclass
+class Triangles:
     """Triangle soup, STORED as flat (T,) component arrays.
 
-    r5 layout change: on TPU a (T, 3) array is 128-lane-padded in HBM
-    (42x the logical bytes), so merely READING one column costs a full
-    pass over the padded storage — measured 1.35 ms vs 0.14 ms for a
-    dense (T,) array at T=800k. The per-frame binning prepass touches
-    all nine p1/e1/e2 components, which made the old (T, 3) fields a
-    ~3 ms/frame layout tax. Components are therefore the stored pytree
-    leaves (they are also the differentiable parameters — gradients flow
-    to them through the (T, 3) views, which are PROPERTIES built on
-    demand for API/oracle/host consumers)."""
+    The per-frame binning prepass reads all nine p1/e1/e2 components as
+    dense (T,) arrays, so components are the stored pytree leaves (they
+    are also the differentiable parameters — gradients flow to them
+    through the (T, 3) views, which are PROPERTIES built on demand for
+    API/oracle/host consumers)."""
 
     p1x: jax.Array     # (T,) first-vertex / edge components
     p1y: jax.Array
@@ -66,8 +63,8 @@ class Triangles(struct.PyTreeNode):
         precision switch (typedefs.h:11-29 PPP_TAG -> T_fp float/double):
         the scene's dtype flows through every downstream op. float64
         requires jax_enable_x64; the "brute"/"fixed"/"kd" intersect paths
-        run fully in the scene dtype, while the cluster/Pallas paths store
-        acceleration geometry in f32 (the TPU has no f64 vector unit)."""
+        run fully in the scene dtype, while the cluster and bin paths store
+        acceleration geometry in f32."""
         tv = jnp.asarray(tri_vertices, dtype)
         p1 = tv[:, 0]
         e1 = tv[:, 1] - p1
@@ -100,9 +97,8 @@ class Triangles(struct.PyTreeNode):
 
     @property
     def n(self) -> jax.Array:
-        """Unit geometric normal normalize(e1 x e2), derived on demand
-        (the stored-table form was dropped in r5 — gradients flow through
-        the true n(e1, e2) dependence)."""
+        """Unit geometric normal normalize(e1 x e2), derived on demand, so
+        gradients flow through the true n(e1, e2) dependence."""
         cnx = self.e1y * self.e2z - self.e1z * self.e2y
         cny = self.e1z * self.e2x - self.e1x * self.e2z
         cnz = self.e1x * self.e2y - self.e1y * self.e2x
@@ -130,7 +126,8 @@ class Triangles(struct.PyTreeNode):
         return (lo.min(axis=0) + hi.max(axis=0)) / 2.0
 
 
-class SceneObject(struct.PyTreeNode):
+@pytree_dataclass
+class SceneObject:
     """Geometry + pose. Multiple objects may share geometry (the reference
     creates two Objects over one Trixel list, WinMain.cpp:152-156)."""
 
@@ -144,7 +141,8 @@ class SceneObject(struct.PyTreeNode):
                    else Pose.identity(tris.p1.dtype))
 
 
-class PhongParams(struct.PyTreeNode):
+@pytree_dataclass
+class PhongParams:
     """Learnable Phong/lighting parameters (kernel literals in
     Camera.cu:32,44-52 promoted to parameters)."""
 
@@ -162,7 +160,8 @@ class PhongParams(struct.PyTreeNode):
                    diffuse=fp(0.6), specular=fp(0.3), exponent=fp(5.0))
 
 
-class Scene(struct.PyTreeNode):
+@pytree_dataclass
+class Scene:
     """A renderable scene: objects + lighting parameters."""
 
     objects: tuple[SceneObject, ...]

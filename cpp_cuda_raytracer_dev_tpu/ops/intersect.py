@@ -1,4 +1,4 @@
-"""Möller–Trumbore ray/triangle intersection, TPU-vectorized.
+"""Möller–Trumbore ray/triangle intersection, vectorized over batches.
 
 Replaces the reference's per-thread branchy intersectors — the brute-force
 ``intersect_trixel_cuda`` (``TEST_Dungeonrun/Trixel.cu:173-209``) and the MT
@@ -19,8 +19,8 @@ inner loop of the KD traversal kernel (``Trixel.cu:101-142``) — with dense
       v*det[r,t] = d[r] . ((o - p1) x e1)[t]      (reference's d_q)
       t*det[t]   = e2 . ((o - p1) x e1)[t]        (reference's d_w, ray-free)
 
-  i.e. one (R,3) @ (3,3T) MXU contraction + elementwise acceptance, which is
-  how this maps to TPU hardware instead of a per-thread scalar loop.
+  i.e. one (R,3) @ (3,3T) contraction + elementwise acceptance instead of a
+  per-thread scalar loop.
 
 Acceptance test matches the reference exactly (Trixel.cu:106,127):
 reject when |det| < eps, or u < eps, or v < eps, or u+v > 1+eps, or t < eps,
@@ -31,13 +31,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..utils.dtypes import DEFAULT_DRAW_DISTANCE, MT_EPSILON
+from ..utils.pytree import pytree_dataclass
 from . import vecmath
 
 
-class Hit(struct.PyTreeNode):
+@pytree_dataclass
+class Hit:
     """Per-ray nearest-hit record (the written-back fields of pixel_memory:
     d_rmi, d_dist — Trixel.cu:129-139)."""
 
@@ -140,9 +141,10 @@ def mt_brute(o: jax.Array, d: jax.Array, tris,
     return best
 
 
-class FixedOriginCache(struct.PyTreeNode):
+@pytree_dataclass
+class FixedOriginCache:
     """Per-(origin, object) triangle constants for the matmul-form MT — the
-    TPU-shaped equivalent of Camera::trixel_memory d_t/d_q/d_w
+    batched equivalent of Camera::trixel_memory d_t/d_q/d_w
     (Camera.h:64-68, built by init_cam_tri_mem_cuda, Trixel.cu:29-36).
 
     m is (3, 3T): columns [e2 x e1 | e2 x tvec | tvec x e1] interleaved per
@@ -172,8 +174,8 @@ def mt_fixed_origin(d: jax.Array, cache: FixedOriginCache,
                     eps: float = MT_EPSILON, chunk: int = 2048) -> Hit:
     """Nearest hit for rays sharing one origin, via (R,3)@(3,T) matmuls.
 
-    d: (R, 3) unit directions in the object frame. The three contractions
-    land on the MXU; acceptance + min-reduce stay on the VPU.
+    d: (R, 3) unit directions in the object frame: three contractions,
+    then elementwise acceptance + min-reduce.
     """
     num_t = cache.tdet.shape[0]
     pad = (-num_t) % chunk
@@ -191,9 +193,8 @@ def mt_fixed_origin(d: jax.Array, cache: FixedOriginCache,
 
     def step(best, args):
         ci, (mdc, muc, mvc, tdc) = args
-        # precision=HIGHEST: the default TPU matmul rounds inputs to
-        # bf16, which visibly quantizes hit distances — intersection needs
-        # full f32 accumulation.
+        # precision=HIGHEST: a reduced-precision float32 matmul (TF32 on a
+        # GPU) visibly quantizes hit distances — the oracle needs full f32.
         hp = jax.lax.Precision.HIGHEST
         det = jnp.dot(d, mdc.T, precision=hp,
                       preferred_element_type=d.dtype)  # (R, C)

@@ -1,6 +1,6 @@
 """Quaternion algebra and rigid-body poses as JAX pytrees.
 
-TPU-native replacement for the reference's ``Quaternion`` class
+JAX replacement for the reference's ``Quaternion`` class
 (``TEST_Dungeonrun/Quaternion.h/.cpp/.cu``). The reference stores a unit
 quaternion plus a 3x4 row matrix whose ``w`` column accumulates translation,
 mutated in place by 1-thread CUDA kernels (``Quaternion.cu:4-10``). Here a
@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import pytree_dataclass
 
 from . import vecmath
 
@@ -82,8 +83,8 @@ def to_matrix(q: jax.Array) -> jax.Array:
 def rotate(q: jax.Array, v: jax.Array) -> jax.Array:
     """Rotate vectors ``v`` (..., 3) by unit quaternion ``q`` (4,).
 
-    precision=HIGHEST: TPU matmuls default to bf16 inputs, which would
-    visibly bend ray directions; full f32 here costs nothing at 3x3.
+    precision=HIGHEST: a reduced-precision float32 matmul (TF32 on a GPU)
+    would visibly bend ray directions; full f32 costs nothing at 3x3.
     """
     return jnp.einsum("ij,...j->...i", to_matrix(q), v,
                       precision=jax.lax.Precision.HIGHEST)
@@ -96,7 +97,8 @@ def inverse_rotate(q: jax.Array, v: jax.Array) -> jax.Array:
                       precision=jax.lax.Precision.HIGHEST)
 
 
-class Pose(struct.PyTreeNode):
+@pytree_dataclass
+class Pose:
     """Rigid pose: rotation quaternion + translation.
 
     Replaces the reference's pose-in-matrix-w-column representation

@@ -47,11 +47,9 @@ def phong_radiance_c(hit_point, normal, ray_dir, tri_color,
                      params: PhongParams):
     """Componentized `phong_radiance`: hit_point/normal/ray_dir/tri_color
     are (px, py, pz)-style tuples of flat (R,) arrays and the return is a
-    flat (rr, rg, rb) tuple. Fully flat in AND out (r5): any (R, 3)
-    value materialized on TPU lane-pads the 3-axis to 128 (42x traffic
-    waste), and under jax.grad the residuals saved for the backward pass
-    materialize exactly these intermediates — the componentized form
-    keeps every residual a dense (R,) array."""
+    flat (rr, rg, rb) tuple: under jax.grad the residuals saved for the
+    backward pass are exactly these intermediates, and the componentized
+    form keeps every one a dense (R,) array."""
     px, py, pz = hit_point
     nx, ny, nz = normal
     dx, dy, dz = ray_dir

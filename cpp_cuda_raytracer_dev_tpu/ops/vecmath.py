@@ -1,10 +1,10 @@
 """Vector math primitives over ``(..., 3)`` arrays.
 
-TPU-native replacement for the reference's host/device vector libraries
+JAX replacement for the reference's host/device vector libraries
 (``TEST_Dungeonrun/Vector.h``, ``vector.cpp``, ``vector.cuh``). The reference
 carries scalar SoA pointers and a Quake-style inverse sqrt with Newton
 refinement (``vector.cpp:13-26``, ``vector.cuh:79-95``); here everything is a
-batched jnp op the VPU vectorizes directly, and ``jax.lax.rsqrt`` replaces the
+batched jnp op XLA vectorizes directly, and ``jax.lax.rsqrt`` replaces the
 bit-trick (``quake_rsqrt`` is kept for numerical-parity tests only).
 
 All functions are shape-polymorphic over leading batch dims and jit-safe.
@@ -37,7 +37,7 @@ def norm(a: jax.Array) -> jax.Array:
 
 
 def normalize(a: jax.Array, eps: float = 0.0) -> jax.Array:
-    """Unit vector along ``a``; rsqrt on the VPU instead of the reference's
+    """Unit vector along ``a``; hardware rsqrt instead of the reference's
     Quake bit-trick + 8 Newton steps (vector.cpp:13-26)."""
     s = dot(a, a)
     if eps:
@@ -58,7 +58,7 @@ def quake_rsqrt(s: jax.Array, newton_iters: int = 8) -> jax.Array:
     magic constant 0x5f375a86 then ``newton_iters`` Newton refinements.
 
     Kept only to validate that plain rsqrt is at least as accurate; never
-    used in the render path (the VPU has a native rsqrt).
+    used in the render path (the hardware has a native rsqrt).
     """
     s = jnp.asarray(s, jnp.float32)
     half = 0.5 * s

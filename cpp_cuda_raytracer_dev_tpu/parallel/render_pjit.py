@@ -3,8 +3,8 @@
 Scaling design (SURVEY.md §5/§7, BASELINE.json north star): the image's row
 axis is sharded over the "rays" mesh axis — forward rendering is then
 embarrassingly parallel (zero cross-chip traffic: scene tables replicated,
-each chip culls + intersects + shades its own row band). The backward pass
-all-reduces parameter gradients over ICI; with `shard_map` + `jax.grad`, XLA
+each device culls + intersects + shades its own row band). The backward
+pass all-reduces parameter gradients; with `shard_map` + `jax.grad`, XLA
 inserts and overlaps those psums automatically.
 
 Optionally the triangle axis is also sharded ("prims"): each device holds a
@@ -18,8 +18,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..models.camera import Camera
 from ..models.renderer import RenderOutput, render_rays
@@ -40,9 +40,10 @@ def render_sharded(scene: Scene, camera: Camera, config: RenderConfig,
                    mesh: Mesh, accel=None) -> RenderOutput:
     """Forward frame with image rows sharded over mesh axis "rays".
 
-    Jit this with everything but config traced; scene/camera replicate,
-    per-pixel outputs come back row-sharded (harvest or all-gather as
-    needed).
+    Scene/camera replicate, per-pixel outputs come back row-sharded
+    (harvest or all-gather as needed). Every sharded entry point here
+    jits its shard_map body: executed op by op, a shard_map over several
+    devices costs tens of seconds even for a tiny frame.
     """
     band_h = _check_band(camera, mesh, config)
     rmd = camera.ray_directions().reshape(camera.res_h, camera.res_w, 3)
@@ -52,7 +53,7 @@ def render_sharded(scene: Scene, camera: Camera, config: RenderConfig,
     @partial(shard_map, mesh=mesh,
              in_specs=(P(), P(), P(RAYS_AXIS, None, None)),
              out_specs=P(RAYS_AXIS),
-             check_rep=False)
+             check_vma=False)
     def worker(scene_, origin, band):
         proj_band = None
         if proj is not None:
@@ -67,7 +68,7 @@ def render_sharded(scene: Scene, camera: Camera, config: RenderConfig,
         return jax.tree.map(
             lambda x: x.reshape(band_h, camera.res_w, *x.shape[1:]), flat)
 
-    out = worker(scene, camera.pos, rmd)
+    out = jax.jit(worker)(scene, camera.pos, rmd)
     return RenderOutput(**out)
 
 
@@ -78,9 +79,9 @@ def render_sharded_2d(scene: Scene, camera: Camera, config: RenderConfig,
 
     Every prim shard intersects only its own contiguous triangle range
     (the matmul-form fixed-origin path), the per-ray nearest hit is
-    min-combined across the prim axis (`allreduce_nearest_hit` — two ICI
+    min-combined across the prim axis (`allreduce_nearest_hit` — two
     collectives), and shading runs on the combined hit. This is the
-    pod-scale generalization of the reference's per-thread nearest-hit
+    multi-device generalization of the reference's per-thread nearest-hit
     select (Trixel.cu:127-142); see SURVEY.md §5 "long-context analogue".
     """
     from ..models.renderer import shade_hits
@@ -111,7 +112,7 @@ def render_sharded_2d(scene: Scene, camera: Camera, config: RenderConfig,
     @partial(shard_map, mesh=mesh,
              in_specs=(P(), P(), P(RAYS_AXIS, None, None)),
              out_specs=P(RAYS_AXIS),
-             check_rep=False)
+             check_vma=False)
     def worker(scene_, origin, band):
         pi = jax.lax.axis_index(PRIMS_AXIS)
         d_flat = band.reshape(-1, 3)
@@ -142,7 +143,7 @@ def render_sharded_2d(scene: Scene, camera: Camera, config: RenderConfig,
         return jax.tree.map(
             lambda x: x.reshape(band_h, res_w, *x.shape[1:]), flat)
 
-    out = worker(scene, camera.pos, rmd)
+    out = jax.jit(worker)(scene, camera.pos, rmd)
     return RenderOutput(**out)
 
 
@@ -171,7 +172,6 @@ def shard_accel(accel, nprims: int):
         bounds_max=cut(accel.bounds_max, -big),
         centers=cut(accel.centers, 0.0),
         geom_t=cut(accel.geom_t, 0.0),
-        geom9_t=cut(accel.geom9_t, 0.0),
         slot_mat=cut(accel.slot_mat, -1),
         leaf_size=accel.leaf_size,
     )
@@ -180,7 +180,7 @@ def shard_accel(accel, nprims: int):
 def render_sharded_2d_accel(scene: Scene, camera: Camera,
                             config: RenderConfig, mesh: Mesh,
                             accel) -> RenderOutput:
-    """Accelerated (flagship pallas2/grid) rendering on a 2-D
+    """Cluster-accelerated (method="grid") rendering on a 2-D
     ("rays", "prims") mesh: image rows sharded over "rays", each object's
     *cluster ranges* sharded over "prims" (`shard_accel`). Every prim
     shard culls + intersects only its own clusters; the per-ray nearest
@@ -202,13 +202,13 @@ def render_sharded_2d_accel(scene: Scene, camera: Camera,
     @partial(shard_map, mesh=mesh,
              in_specs=(P(), P(), P(RAYS_AXIS, None, None), P(PRIMS_AXIS)),
              out_specs=P(RAYS_AXIS),
-             check_rep=False)
+             check_vma=False)
     def worker(scene_, origin, band, accel_s):
         accel_local = jax.tree.map(lambda x: x[0], accel_s)
         d_flat = band.reshape(-1, 3)
-        # tangents stop at the traversal *inputs* (pallas_call defines no
-        # JVP rule — see models/renderer.py render_rays); hit topology is
-        # non-differentiable by design, shading re-derives t.
+        # tangents stop at the traversal *inputs* (see models/renderer.py
+        # render_rays); hit topology is non-differentiable by design,
+        # shading re-derives t.
         sg = jax.lax.stop_gradient
         hit = trace_rays(sg(scene_), sg(origin), sg(d_flat), config,
                          sg(accel_local), band_h, res_w)
@@ -226,24 +226,21 @@ def render_sharded_2d_accel(scene: Scene, camera: Camera,
         return jax.tree.map(
             lambda x: x.reshape(band_h, res_w, *x.shape[1:]), flat)
 
-    out = worker(scene, camera.pos, rmd, stacked)
+    out = jax.jit(worker)(scene, camera.pos, rmd, stacked)
     return RenderOutput(**out)
 
 
 def render_sharded_2d_bin(scene: Scene, camera: Camera,
                           config: RenderConfig, mesh: Mesh) -> RenderOutput:
-    """FLAGSHIP (bin) rendering on a 2-D ("rays", "prims") mesh: image
+    """Main-path (method="bin") rendering on a 2-D ("rays", "prims") mesh: image
     rows sharded over "rays" AND each object's triangle range sharded
     over "prims". Every prim shard bins + intersects only its own
     contiguous triangle range against its row band (the screen-space cull
     is per-shard exact — binning a subset is still conservative for that
     subset), then the per-ray nearest hit is min-combined across the prim
-    axis (`allreduce_nearest_hit`, two ICI collectives) and shading runs
+    axis (`allreduce_nearest_hit`, two collectives) and shading runs
     on the combined hit. Winner triangle ids are shifted by the shard's
     slot offset so shading gathers from the full replicated tables.
-
-    This closes VERDICT r3's A7 note (no prim-sharded variant of the
-    flagship bin path): rays x prims now composes with method="bin".
     """
     from ..models.renderer import shade_hits
     from ..ops.intersect import Hit
@@ -277,7 +274,7 @@ def render_sharded_2d_bin(scene: Scene, camera: Camera,
     @partial(shard_map, mesh=mesh,
              in_specs=(P(), P(), P(RAYS_AXIS, None, None)),
              out_specs=P(RAYS_AXIS),
-             check_rep=False)
+             check_vma=False)
     def worker(scene_, origin, band):
         from ..accel.traverse import intersect_binned
 
@@ -313,7 +310,7 @@ def render_sharded_2d_bin(scene: Scene, camera: Camera,
         return jax.tree.map(
             lambda x: x.reshape(band_h, res_w, *x.shape[1:]), flat)
 
-    out = worker(scene, camera.pos, rmd)
+    out = jax.jit(worker)(scene, camera.pos, rmd)
     return RenderOutput(**out)
 
 
@@ -342,7 +339,7 @@ def make_loss_fn(config: RenderConfig, mesh: Mesh | None, accel=None):
 def make_train_step(optimizer, config: RenderConfig, mesh: Mesh | None,
                     accel=None):
     """SGD step over scene/camera parameters: grads of the sharded loss are
-    all-reduced by XLA (ICI psum overlapped with backward)."""
+    all-reduced by XLA (psum overlapped with backward)."""
     loss_fn = make_loss_fn(config, mesh, accel)
 
     def step(params, opt_state, target):

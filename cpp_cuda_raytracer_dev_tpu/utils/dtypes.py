@@ -1,6 +1,6 @@
-"""Scalar/precision configuration for the TPU ray tracer.
+"""Scalar/precision configuration for the ray tracer.
 
-TPU-native analogue of the reference's compile-time precision switch
+The analogue of the reference's compile-time precision switch
 (``TEST_Dungeonrun/typedefs.h:11-29``: ``PPP_TAG`` selects ``T_fp`` =
 float/double) and its device epsilons
 (``TEST_Dungeonrun/vector.cuh:10-13``). Instead of a preprocessor tag we use a

@@ -2,7 +2,7 @@
 
 The reference presents frames with StretchDIBits into a Win32 window and
 redraws a console HUD in place with VT escapes (WinMain.cpp:217,225-234).
-A TPU pod has no window; the equivalents are PPM/PNG artifacts on disk and
+A headless renderer has no window; the equivalents are PPM/PNG artifacts on disk and
 an in-place terminal HUD for the animation driver.
 """
 

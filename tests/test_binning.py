@@ -1,5 +1,5 @@
 """Screen-space binning cull (accel/binning.py) + bin kernel
-(ops/pallas/bin_kernel.py, interpret mode on CPU).
+(ops/pallas/bin_intersect.py, interpret mode on CPU).
 
 The critical property is *conservativeness*: a pixel's ray can only hit a
 triangle whose projection covers that pixel, so the triangle must be in
@@ -69,8 +69,9 @@ def test_binning_conservative(tester, off_scale):
 
 
 def test_binning_depth_sorted_within_tile(tester):
-    """Entries within a tile must come out front-to-back (the kernel's
-    early-exit order) up to the quantization step."""
+    """The depth row must be non-decreasing within each tile (the kernel
+    stops at the first entry whose certificate passes its rays) and must
+    bound each entry's own min-vertex depth from below."""
     tris, center, size = tester
     cam = _camera(center, size, [0, 0, -1.3 * size])
     binned = bin_triangles(cam.projection(), jnp.asarray(cam.pos),
@@ -79,11 +80,16 @@ def test_binning_depth_sorted_within_tile(tester):
                            e_cap=tris.num_triangles * 8 + 4096)
     starts = np.asarray(binned.starts)
     depth = np.asarray(binned.geom)[10].reshape(-1)
-    qstep = float(binned.qstep)
+    et = np.asarray(binned.entry_tri)
+    vert = np.asarray(tris.vertices()) - np.asarray(cam.pos)
+    n = np.asarray(cam.projection().n)
+    own = (vert @ n).min(axis=1)                     # per-triangle depth
     for t in range(len(starts) - 1):
         seg = depth[starts[t]:starts[t + 1]]
         if len(seg) > 1:
-            assert (np.diff(seg) >= -qstep - 1e-6).all()
+            assert (np.diff(seg) >= 0).all()
+        ids = et[starts[t]:starts[t + 1]]
+        assert (seg <= np.maximum(own[ids], 0) + 1e-5).all()
 
 
 @pytest.mark.parametrize("off_scale", [(0.0, 0.0, -1.3), (0.5, 0.1, 0.5)])
@@ -129,10 +135,10 @@ def test_bin_camera_inside_scene(tester):
     """Camera inside the mesh: many triangles cross the camera plane and
     bin conservatively to EVERY tile (accel/binning.py cross handling) —
     the degenerate full-broadcast regime must stay exact, just slow
-    (VERDICT r2 ask #7)."""
+    """
     tris, center, size = tester
     scene = Scene.create([SceneObject.create(tris)])
-    # inside the tester dome, looking sideways
+    # inside the closed tester mesh, looking sideways
     cam = _camera(center, size, np.asarray([0.05, 0.02, 0.04]) * size)
     dd = max(400.0, 10 * size)
     ref = render(scene, cam, RenderConfig(method="fixed", chunk=512,
@@ -149,9 +155,9 @@ def test_bin_camera_inside_scene(tester):
 
 def test_bin_overflow_reported(tester):
     """An undersized entry table must be REPORTED (overflow_entries > 0),
-    never silent — the render path drops geometry when e_cap is exceeded
-    (VERDICT r2 ask #7: capacity story). The render path surfaces the
-    same scalar through intersect_binned(with_stats)."""
+    never silent — the render path drops geometry when e_cap is exceeded.
+    The render path surfaces the same scalar through
+    intersect_binned(with_stats)."""
     tris, center, size = tester
     cam = _camera(center, size, [0, 0, -1.3 * size])
     binned = bin_triangles(cam.projection(), jnp.asarray(cam.pos),
@@ -164,10 +170,8 @@ def test_bin_overflow_reported(tester):
 @pytest.mark.parametrize("e_cap,chunk", [(512, 64), (1024, 64), (448, 64)])
 def test_starts_exact_vs_numpy(tester, e_cap, chunk):
     """Per-tile segment starts must equal numpy's lower_bound over the
-    sorted keys — including power-of-two e_cap, where the fixed-iteration
-    binary search used to run one round short ((e_cap-1).bit_length())
-    and could understate starts[t], truncating tile t-1's segment
-    (ADVICE r3, medium)."""
+    sorted keys — including power-of-two e_cap, where an understated
+    starts[t] would truncate tile t-1's segment."""
     tris, center, size = tester
     cam = _camera(center, size, [0, 0, -1.3 * size])
     n_tiles = (-(-RES_W // TW)) * (-(-RES_H // TH))
@@ -194,8 +198,8 @@ def test_starts_exact_vs_numpy(tester, e_cap, chunk):
 def test_cross_tri_zero_depth_certificate():
     """Camera-plane-crossing triangles must carry a 0 depth certificate:
     their hit can be NEARER than the min front-vertex depth, so a
-    positive certificate could let the kernel's cmin gate skip the block
-    holding the true nearest hit (ADVICE r3)."""
+    positive certificate could let the kernel stop before the entry
+    holding the true nearest hit."""
     cam = Camera.create(RES_W, RES_H, pos=[0.0, 0.0, 0.0],
                         look_at=[0.0, 0.0, 1.0], up=[0, 1, 0],
                         film_h=0.024, focal=0.055)
@@ -269,28 +273,22 @@ def test_backface_cull_exact_on_closed_mesh():
     assert e[1] < 0.7 * e[0]
 
 
-def test_bin_bf16_preview_mode_runs(tester):
-    """bin_mt_dtype='bfloat16' is the documented APPROXIMATE preview mode
-    (r5: 2.6x kernel speedup, winner agreement ~0.66 at dragon scale —
-    never used for validated numbers). This guards that the mode keeps
-    running and stays in the right quality ballpark."""
-    from cpp_cuda_raytracer_dev_tpu.models.renderer import trace_rays
+def test_bin_grads_all_finite():
+    """fwd+bwd over every scene leaf and the camera stays finite on a mesh
+    with degenerate (zero-area) pole triangles, which miss rays gather."""
+    from cpp_cuda_raytracer_dev_tpu.utils.procgen import dragon_class_mesh
 
-    tris, center, size = tester
-    cam = _camera(center, size, [0.1 * size, 0.15 * size, -1.1 * size])
-    rmd = cam.ray_directions()
-    proj = cam.projection()
+    tris = Triangles.from_vertices(dragon_class_mesh(2000, seed=1))
     scene = Scene.create([SceneObject.create(tris)])
-    exact = trace_rays(scene, cam.pos, rmd,
-                       RenderConfig(method="bin", bin_chunk=128), None,
-                       cam.res_h, cam.res_w, proj=proj)
-    approx = trace_rays(scene, cam.pos, rmd,
-                        RenderConfig(method="bin", bin_chunk=128,
-                                     bin_mt_dtype="bfloat16"), None,
-                        cam.res_h, cam.res_w, proj=proj)
-    agree = float(np.mean(np.asarray(exact.tri) == np.asarray(approx.tri)))
-    # approximate but not garbage: hit/miss structure mostly preserved
-    mask_agree = float(np.mean((np.asarray(exact.tri) >= 0)
-                               == (np.asarray(approx.tri) >= 0)))
-    assert mask_agree > 0.9
-    assert agree > 0.3
+    cam = Camera.create(64, 32, pos=[0.0, 0.0, -3.0], look_at=[0, 0, 0],
+                        up=[0, 1, 0], film_h=0.024, focal=0.055)
+    cfg = RenderConfig(method="bin", bin_chunk=32)
+    w = jnp.linspace(0.3, 1.7, 64 * 32 * 3).reshape(32, 64, 3)
+
+    def loss(s, c):
+        return jnp.mean(render(s, c, cfg).radiance * w)
+
+    g = jax.jit(jax.grad(loss, argnums=(0, 1)))(scene, cam)
+    leaves = jax.tree.leaves(g)
+    assert all(np.isfinite(np.asarray(x)).all() for x in leaves)
+    assert max(float(np.abs(np.asarray(x)).max()) for x in leaves) > 0

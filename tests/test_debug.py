@@ -50,7 +50,7 @@ def test_debug_nans_context(tiny_scene):
 
 
 def test_checked_render_flagship_bin(tiny_scene):
-    """checkify composes with the FLAGSHIP bin path too (Pallas call is
+    """checkify composes with the main bin path too (Pallas call is
     opaque to checkify; its outputs are checked by the consuming ops)."""
     scene, camera = tiny_scene
     err, frame = checked_render(scene, camera,

@@ -85,7 +85,7 @@ def fd_grad(f, x, eps):
     # pose/camera gradients are interior-only at fixed topology by design
     # (stop_gradient on hit selection, models/renderer.py), so the FD loss
     # is masked to silhouette-free pixels — there the analytic gradient is
-    # exact and the tolerance is tight (VERDICT r1 weak #5).
+    # exact and the tolerance is tight.
     ("trans", 5e-4, 1e-2, True),
     ("cam_pos", 1e-4, 1e-2, True),
 ])

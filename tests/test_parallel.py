@@ -73,7 +73,7 @@ def test_sharded_train_step_runs_and_matches_single(scene, camera):
 
 def test_allreduce_nearest_hit():
     from functools import partial
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     from cpp_cuda_raytracer_dev_tpu.ops.intersect import Hit
@@ -123,7 +123,8 @@ def test_prims_sharded_render_matches_single(scene, camera):
 
 @pytest.fixture(scope="module")
 def tester_setup(tester_path):
-    """Real mesh + accel for the flagship-path sharding tests."""
+    """Fixture mesh + cluster accel for the accelerated-path sharding
+    tests."""
     from cpp_cuda_raytracer_dev_tpu.accel.traverse import ClusterAccel
     from cpp_cuda_raytracer_dev_tpu.io import ply
 
@@ -137,14 +138,14 @@ def tester_setup(tester_path):
         64, 32, pos=center + np.array([0, 0, -1.3 * size]),
         look_at=center, up=[0, 1, 0], film_h=0.024, focal=0.055)
     accel = (ClusterAccel.build(tris, leaf_size=32),)
-    cfg = RenderConfig(method="pallas2", leaf_size=32, tile_h=4, tile_w=32,
+    cfg = RenderConfig(method="grid", leaf_size=32, tile_h=4, tile_w=32,
                        max_candidates=16, draw_distance=max(400.0, 10 * size))
     return sc, cam, accel, cfg
 
 
-def test_pallas2_rays_sharded_matches_single(tester_setup):
-    """The flagship Pallas kernel must run inside shard_map (rays axis) and
-    agree with the single-device result (VERDICT r1 weak #6)."""
+def test_grid_rays_sharded_matches_single(tester_setup):
+    """The cluster path must run inside shard_map (rays axis) and agree
+    with the single-device result."""
     sc, cam, accel, cfg = tester_setup
     m = pmesh.make_mesh(8)
     out_s = render_sharded(sc, cam, cfg, m, accel=accel)
@@ -156,9 +157,9 @@ def test_pallas2_rays_sharded_matches_single(tester_setup):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_pallas2_prim_sharded_matches_single(tester_setup):
-    """Cluster-range sharding over "prims" with the pallas2 kernel +
-    nearest-hit all-reduce must agree with the single-device flagship."""
+def test_grid_prim_sharded_matches_single(tester_setup):
+    """Cluster-range sharding over "prims" + nearest-hit all-reduce must
+    agree with the single-device cluster path."""
     from cpp_cuda_raytracer_dev_tpu.parallel.render_pjit import (
         render_sharded_2d_accel)
     sc, cam, accel, cfg = tester_setup
@@ -173,7 +174,7 @@ def test_pallas2_prim_sharded_matches_single(tester_setup):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_pallas2_prim_sharded_grad_runs(tester_setup):
+def test_grid_prim_sharded_grad_runs(tester_setup):
     """Gradients must flow through the prim-sharded accelerated path
     (psum of parameter grads over both mesh axes)."""
     from cpp_cuda_raytracer_dev_tpu.parallel.render_pjit import (
@@ -193,7 +194,8 @@ def test_pallas2_prim_sharded_grad_runs(tester_setup):
 def test_bin_method_rays_sharded_matches_single(tester_setup):
     """The binning path must run inside shard_map: each band re-bins with
     an adjust_y-shifted projection (affine pixel coords => band windows
-    are a projection shift)."""
+    are a projection shift). Band rays are bit-identical to the full
+    frame's and ties go to the smallest id, so every winner matches."""
     import dataclasses
     sc, cam, accel, cfg = tester_setup
     bcfg = dataclasses.replace(cfg, method="bin", tile_h=4, tile_w=32,
@@ -201,15 +203,14 @@ def test_bin_method_rays_sharded_matches_single(tester_setup):
     m = pmesh.make_mesh(4)
     out_s = render_sharded(sc, cam, bcfg, m)
     out_1 = render(sc, cam, bcfg)
-    agree = (np.asarray(out_s.hit_tri) == np.asarray(out_1.hit_tri)).mean()
-    assert agree > 0.999, f"agreement {agree}"
+    np.testing.assert_array_equal(np.asarray(out_s.hit_tri),
+                                  np.asarray(out_1.hit_tri))
 
 
 def test_bin_prim_sharded_matches_single(tester_setup):
-    """FLAGSHIP bin path on the 2-D rays x prims mesh: each prim shard
-    bins only its contiguous triangle range, nearest hits min-combine
-    over the prim axis (VERDICT r3 ask #7 — the bin path gains a
-    prim-sharded variant, not just rays-axis sharding)."""
+    """Main bin path on the 2-D rays x prims mesh: each prim shard bins
+    only its contiguous triangle range, nearest hits min-combine over
+    the prim axis."""
     import dataclasses
 
     from cpp_cuda_raytracer_dev_tpu.parallel.render_pjit import (

@@ -1,16 +1,21 @@
 import numpy as np
 
 from cpp_cuda_raytracer_dev_tpu.io import ply
+from cpp_cuda_raytracer_dev_tpu.utils import procgen
+from meshes import (TESTER_ARGS, TESTER_LAT, TESTER_LON,
+                    fixture_tester_grid, indexed, rabbit_indexed, walls_mesh)
 
 
 def test_rabbit_ascii(rabbit_path):
+    """ASCII PLY with bare `element` lines (no `property` declarations)
+    and five vertex columns: the width is inferred from the body."""
+    v, faces = rabbit_indexed()
     mesh = ply.load_mesh(rabbit_path)
-    # header: 35947 vertices, 69451 faces, all triangles
-    assert mesh.vertices.shape == (35947, 3)
-    assert mesh.num_triangles == 69451
+    assert mesh.vertices.shape == v.shape
+    np.testing.assert_array_equal(mesh.vertices, v)
+    assert mesh.num_triangles == len(faces)
     # reference rewind (read_ply.cpp:138-148): stored tri = (p3, p1, p2)
-    # first face line of rabbit is "3 21216 21215 20399"
-    p1, p2, p3 = 21216, 21215, 20399
+    p1, p2, p3 = faces[0]
     np.testing.assert_allclose(mesh.tri_vertices[0],
                                mesh.vertices[[p3, p1, p2]])
     # AABBs bound their triangles
@@ -19,18 +24,31 @@ def test_rabbit_ascii(rabbit_path):
 
 
 def test_walls_binary(walls_path):
+    """Binary little-endian PLY with normals and mixed tris/quads."""
+    v, _, faces = walls_mesh()
     mesh = ply.load_mesh(walls_path)
-    assert mesh.vertices.shape == (14, 3)
-    # 18 faces; blender exports tris here
-    assert mesh.num_triangles >= 18
+    np.testing.assert_array_equal(mesh.vertices, v)
+    # two triangles + two quads split in two
+    assert mesh.num_triangles == 6
+    np.testing.assert_array_equal(mesh.tri_vertices[0], v[[2, 0, 1]])
+    np.testing.assert_array_equal(mesh.tri_vertices[2], v[[4, 5, 6]])
+    np.testing.assert_array_equal(mesh.tri_vertices[3], v[[4, 6, 7]])
     assert np.isfinite(mesh.tri_vertices).all()
 
 
 def test_tester_headerless(tester_path):
+    """Headerless fixture format: counts on the first two lines, then
+    x y z nx ny nz vertex lines and quad faces."""
+    v, quads = fixture_tester_grid()
     mesh = ply.load_mesh(tester_path)
-    assert mesh.vertices.shape == (961, 3)
-    assert mesh.num_triangles >= 744
-    assert np.isfinite(mesh.tri_vertices).all()
+    assert mesh.vertices.shape == ((TESTER_LAT + 1) * (TESTER_LON + 1), 3)
+    np.testing.assert_allclose(mesh.vertices, v, rtol=1e-7)
+    assert mesh.num_triangles == 2 * len(quads)
+    # quads split (A,B,C)+(A,C,D): the same soup procgen builds
+    np.testing.assert_allclose(
+        mesh.tri_vertices,
+        procgen.uv_sphere(TESTER_LAT, TESTER_LON, **TESTER_ARGS),
+        rtol=1e-7)
 
 
 def test_quad_split(tmp_path):
@@ -57,3 +75,15 @@ end_header
     v = mesh.vertices
     np.testing.assert_allclose(mesh.tri_vertices[0], v[[0, 1, 2]])
     np.testing.assert_allclose(mesh.tri_vertices[1], v[[0, 2, 3]])
+
+
+def test_write_read_roundtrip(tmp_path):
+    """write_ply -> read_ply is exact in both encodings."""
+    v, faces = indexed(procgen.uv_sphere(4, 6, roughness=0.1, seed=2))
+    for binary in (False, True):
+        p = tmp_path / f"rt_{binary}.ply"
+        ply.write_ply(p, v, faces, binary=binary)
+        mesh = ply.read_ply(p)
+        np.testing.assert_array_equal(mesh.vertices, v)
+        np.testing.assert_array_equal(mesh.tri_vertices,
+                                      v[faces[:, [2, 0, 1]]])

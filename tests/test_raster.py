@@ -6,11 +6,9 @@ triangle id — the raster form evaluates the SAME Möller–Trumbore
 acceptance through affine-in-pixel constants, so agreement should be
 essentially exact, with capacity overflow self-healing (never silent).
 
-Note the perf disposition (measured round 4, scripts/raster_probe.py):
-XLA scatter-min costs ~10 ns/element on TPU regardless of bin count, so
-this path is a correct small-mesh alternative, NOT the flagship — the
-dragon-class mesh generates ~55M bbox pairs/frame = ~1 s of scatter.
-See ROOFLINE.md.
+This path is a correct small-mesh alternative, not the main path: its
+scatter work grows with the projected-bbox pairs (~55M per frame on the
+dragon-class mesh).
 """
 
 import dataclasses
